@@ -3,14 +3,17 @@
 The BAM scanner is the production ingest path: multithreaded BGZF inflate +
 single-pass record filtering in C++ (the reference's equivalent,
 Isas.SequencingFiles, was compiled code too; SURVEY.md §7 layer 1).  It is
-built on first use with g++ and falls back to the pure-Python reader when a
-toolchain is unavailable.
+built from the tracked .cpp sources on first use with g++.  When the build
+fails, the compiler's stderr is printed once and callers fall back to the
+pure-Python reader (about 100x slower at genome scale); `available()` and
+`kmer_available()` say which path is live.
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,16 +28,31 @@ _kmer_lib = None
 _kmer_build_failed = False
 
 
+def _compile(cmd: list[str]) -> None:
+    """Run one g++ build; on failure print its stderr once and re-raise."""
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except subprocess.CalledProcessError as e:
+        print(f"[canvas_tpu] native build failed: {' '.join(cmd)}\n"
+              f"{e.stderr}", file=sys.stderr)
+        raise
+    except OSError as e:            # no compiler on PATH
+        print(f"[canvas_tpu] native build failed: {e}", file=sys.stderr)
+        raise
+
+
+def _stale(lib: Path, src: Path) -> bool:
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
 def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
     try:
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB),
-                 str(_SRC), "-lz", "-lpthread"],
-                check=True, capture_output=True)
+        if _stale(_LIB, _SRC):
+            _compile(["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB),
+                      str(_SRC), "-lz", "-lpthread"])
         lib = ctypes.CDLL(str(_LIB))
         lib.scan_read_starts.restype = ctypes.c_int64
         lib.scan_read_starts.argtypes = [
@@ -64,7 +82,10 @@ def _load():
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32]
         _lib = lib
-    except Exception:
+    except (OSError, AttributeError, subprocess.CalledProcessError) as e:
+        if not isinstance(e, subprocess.CalledProcessError):
+            print(f"[canvas_tpu] cannot load {_LIB.name}: {e}",
+                  file=sys.stderr)
         _build_failed = True
         _lib = None
     return _lib
@@ -75,18 +96,16 @@ def _load_kmer():
     if _kmer_lib is not None or _kmer_build_failed:
         return _kmer_lib
     try:
-        if not _KMER_LIB.exists() \
-                or _KMER_LIB.stat().st_mtime < _KMER_SRC.stat().st_mtime:
+        if _stale(_KMER_LIB, _KMER_SRC):
             try:
                 subprocess.run(
                     ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-o",
                      str(_KMER_LIB), str(_KMER_SRC), "-lpthread"],
                     check=True, capture_output=True)
             except subprocess.CalledProcessError:
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", str(_KMER_LIB),
-                     str(_KMER_SRC), "-lpthread"],
-                    check=True, capture_output=True)
+                # no OpenMP runtime: build the single-threaded variant
+                _compile(["g++", "-O3", "-shared", "-fPIC", "-o",
+                          str(_KMER_LIB), str(_KMER_SRC), "-lpthread"])
         lib = ctypes.CDLL(str(_KMER_LIB))
         lib.flag_unique_kmers.restype = ctypes.c_int64
         lib.flag_unique_kmers.argtypes = [
@@ -94,7 +113,10 @@ def _load_kmer():
             ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int32, ctypes.c_int32]
         _kmer_lib = lib
-    except Exception:
+    except (OSError, AttributeError, subprocess.CalledProcessError) as e:
+        if not isinstance(e, subprocess.CalledProcessError):
+            print(f"[canvas_tpu] cannot load {_KMER_LIB.name}: {e}",
+                  file=sys.stderr)
         _kmer_build_failed = True
         _kmer_lib = None
     return _kmer_lib
@@ -136,7 +158,13 @@ def flag_unique_kmers(seqs: dict, n_passes: int = 1,
 
 
 def available() -> bool:
+    """True when the BAM scanner library is built and loaded."""
     return _load() is not None
+
+
+def kmer_available() -> bool:
+    """True when the k-mer flagger library is built and loaded."""
+    return _load_kmer() is not None
 
 
 def read_bam_refs(path: str) -> list[tuple[str, int]] | None:

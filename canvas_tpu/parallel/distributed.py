@@ -3,7 +3,7 @@
 The reference fans work out one process per chromosome on a single node
 (CanvasRunner.GetIntermediateBinnedFilesByBamPath, CanvasRunner.cs:333-389,
 sorting chromosomes longest-first so the long poles start first).  On a
-multi-host TPU slice the same plan becomes: initialize jax.distributed,
+multi-host GPU cluster the same plan becomes: initialize jax.distributed,
 give every host a deterministic, size-balanced subset of contigs for the
 host-side work (BAM scan, text I/O), and run the device compute with
 global arrays sharded over the full mesh — XLA inserts the cross-host
@@ -73,7 +73,7 @@ def all_gather_host_data(
     owner's values survive an elementwise max (counts are non-negative and
     exactly one process owns each contig).  One gather per contig bounds
     peak memory at n_processes x largest contig instead of x genome.  This
-    is the TPU-native replacement for the reference's per-chromosome
+    is the device-native replacement for the reference's per-chromosome
     intermediate-file merge (CanvasBin.cs:965-1035).
 
     shapes: contig -> (length, dtype) for ALL contigs, identical on every

@@ -1,6 +1,6 @@
 """Device mesh + sharding helpers.
 
-The genome maps onto a TPU slice as (SURVEY.md §2.2):
+The genome maps onto a device mesh as (SURVEY.md §2.2):
   * the "contig" mesh axis shards per-contig lanes (the reference's
     process-per-chromosome fan-out, CanvasRunner.cs:336-389);
   * the "pos" mesh axis shards the genome position / bin axis inside a lane

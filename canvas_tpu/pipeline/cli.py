@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="canvas_tpu",
-        description="TPU-native CNV caller (Canvas-compatible modes)")
+        description="GPU-native CNV caller (Canvas-compatible modes)")
     # MainParser.Run: -v/--version prints the version and exits 0
     # (ModeParserTests.Parse_ModeWithVersion_ReturnsSuccessAndDisplaysVersion)
     p.add_argument("-v", "--version", action="version", version=__version__)

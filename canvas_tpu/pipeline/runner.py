@@ -198,10 +198,6 @@ class WorkflowContext:
         return Path(self.reference_folder) / "genome.fa"
 
     def __post_init__(self):
-        # start absorbing the device session's first-fetch stall while we
-        # parse reference tracks / scan BAMs on the host
-        from canvas_tpu.config import warm_device_session
-        warm_device_session()
         kmer = self.resolve_kmer(self.reference_folder)
         ref = kmer.parent
         self.reference_folder = str(ref)
@@ -493,7 +489,7 @@ def run_partition(
     for name, bins in samples_bins.items():
         cov = cov_cache[name]
         if method == "PerSampleHMM":
-            # all contigs in one batched device decode (pallas on TPU)
+            # all contigs in one batched device decode (route: backend policy)
             bps = hmm.segment_coverage_batched(cov)
         elif method == "HMM":
             # joint multi-sample decode: all contigs as batched device lanes

@@ -173,87 +173,9 @@ def test_load_parameter_file(tmp_path):
         load_parameter_file(bad)
 
 
-def test_hedged_fetch_prefers_fast_device(monkeypatch):
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert config.hedged_fetch(lambda: "device", lambda: "host",
-                               grace=5.0) == "device"
-
-
-def test_hedged_fetch_falls_back_on_stall(monkeypatch):
-    import time as _time
-
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    calls = []
-
-    def slow_fetch():
-        _time.sleep(3.0)
-        calls.append("late")
-        return "device"
-
-    t0 = _time.time()
-    got = config.hedged_fetch(slow_fetch, lambda: "host", grace=0.1)
-    assert got == "host"
-    assert _time.time() - t0 < 2.0  # did not wait for the stalled fetch
-
-
-def test_hedged_fetch_inline_on_cpu():
-    from canvas_tpu import config
-
-    # CPU backend: no thread, straight call
-    assert config.hedged_fetch(lambda: 42, lambda: 0, grace=10.0) == 42
-
-
-def test_hedged_fetch_propagates_fetch_error(monkeypatch):
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def bad_fetch():
-        raise RuntimeError("boom")
-
-    with pytest.raises(RuntimeError):
-        config.hedged_fetch(bad_fetch, lambda: 0, grace=5.0)
-
-
-def test_warm_device_session_idempotent():
-    from canvas_tpu import config
-
-    t1 = config.warm_device_session()
-    t2 = config.warm_device_session()
-    assert t1 is t2
-    t1.join(timeout=30)
-    assert not t1.is_alive()
-
-
-def test_session_ready_reflects_warmup_state(monkeypatch):
-    import threading
-
-    from canvas_tpu import config
-
-    # no warmup requested -> optimistic True
-    monkeypatch.setattr(config, "_WARMUP_THREAD", None)
-    assert config.session_ready()
-
-    gate = threading.Event()
-    t = threading.Thread(target=gate.wait, daemon=True)
-    t.start()
-    monkeypatch.setattr(config, "_WARMUP_THREAD", t)
-    assert not config.session_ready()   # warmup still blocked
-    gate.set()
-    t.join(timeout=5)
-    assert config.session_ready()
-
-
 def test_bin_sample_host_batch_threaded(rng):
-    # force the declined-device path on a CPU backend and check the
-    # threaded host batch matches per-contig bin_contig_np
+    # the numpy route's threaded host batch matches per-contig
+    # bin_contig_np
     from canvas_tpu.ops import binning
 
     tracks = {}
@@ -269,64 +191,7 @@ def test_bin_sample_host_batch_threaded(rng):
                             offset=0, gc_weights=None)
         want[name] = binning.bin_contig_np(possible, obs, is_gc, bs, 0,
                                            "TruncatedDynamicRange")
-    got = binning.bin_sample(tracks, bs, force_fused=False)
+    got = binning.bin_sample(tracks, bs, route="numpy")
     for name in tracks:
         for a, b in zip(got[name], want[name]):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_race_fetch_fast_device_wins(monkeypatch):
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def slow_host():
-        import time as _t
-        _t.sleep(2.0)
-        return "host"
-
-    assert config.race_fetch(lambda: "device", slow_host) == "device"
-
-
-def test_race_fetch_host_wins_on_stall(monkeypatch):
-    import time as _t
-
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def stalled_fetch():
-        _t.sleep(30.0)
-        return "device"
-
-    t0 = _t.time()
-    assert config.race_fetch(stalled_fetch, lambda: "host") == "host"
-    assert _t.time() - t0 < 5.0
-
-
-def test_race_fetch_inline_on_cpu():
-    from canvas_tpu import config
-
-    assert config.race_fetch(lambda: 7, lambda: 0) == 7
-
-
-def test_race_fetch_survives_one_error(monkeypatch):
-    import jax
-    from canvas_tpu import config
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    def bad_fetch():
-        raise RuntimeError("device exploded")
-
-    assert config.race_fetch(bad_fetch, lambda: "host") == "host"
-
-    def bad_host():
-        raise RuntimeError("host exploded")
-
-    assert config.race_fetch(lambda: "device", bad_host) == "device"
-
-    with pytest.raises(RuntimeError):
-        config.race_fetch(bad_fetch, bad_host)

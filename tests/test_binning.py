@@ -80,7 +80,7 @@ def test_device_binning_matches_np(rng):
     offset = binning.leading_n_offset(np.array(list(bases)) == "n")
     tracks = {"chrT": dict(possible=possible, observed=observed,
                            is_gc=is_gc, offset=offset)}
-    dev = binning.bin_sample(tracks, 50, use_device=True)["chrT"]
+    dev = binning.bin_sample(tracks, 50, route="xla")["chrT"]
     ref = binning.bin_contig_np(possible, observed, is_gc, 50, offset)
     np.testing.assert_array_equal(dev[0], ref[0])
     np.testing.assert_array_equal(dev[1], ref[1])

@@ -145,45 +145,3 @@ def test_dispatcher_env_gate(monkeypatch):
     assert not cdev.device_cbs_enabled()
     monkeypatch.setenv("CANVAS_TPU_CBS_FRONTIER", "1")
     assert cdev.device_cbs_enabled()
-
-
-def test_pallas_arc_scan_matches_while_path(rng):
-    """_tmax_batch_pallas (interpret mode on CPU) vs lax.map(_tmax_one):
-    identical t2 (float max is order-independent) and identical (ti, tj)
-    on non-tied data."""
-    npad, B = 256, 4
-    rows = []
-    for i in range(B):
-        r = rng.normal(0, 1, 180 + 17 * i).astype(np.float32)
-        if i % 2 == 0:
-            r[40:90] += 2.5
-        rows.append(r - r.mean())
-    cs = np.zeros((B, npad), np.float32)
-    n = np.zeros(B, np.int32)
-    tss = np.zeros(B, np.float32)
-    for i, r in enumerate(rows):
-        cs[i, : len(r)] = np.cumsum(r)
-        n[i] = len(r)
-        tss[i] = float(np.sum(r.astype(np.float64) ** 2))
-    t2p, tip, tjp = cdev._tmax_batch_pallas(
-        jnp.asarray(cs), jnp.asarray(n), jnp.asarray(tss), npad, 2,
-        interpret=True)
-    for i in range(B):
-        t2w, tiw, tjw = cdev._tmax_one(jnp.asarray(cs[i]), jnp.asarray(n[i]),
-                                       jnp.asarray(tss[i]), npad, 2, 128)
-        assert float(t2p[i]) == pytest.approx(float(t2w), rel=1e-6)
-        assert (int(tip[i]), int(tjp[i])) == (int(tiw), int(tjw))
-
-
-def test_run_cbs_device_pallas_scan_end_to_end(rng, monkeypatch):
-    """Whole engine with the pallas arc scan (interpreter) on planted
-    data, equal to the host oracle path."""
-    monkeypatch.setenv("CANVAS_TPU_CBS_FRONTIER", "1")
-    monkeypatch.setenv("CANVAS_TPU_CBS_PALLAS", "1")
-    r = rng.normal(0, 1, 800)
-    r[200:400] += 4.0
-    cov = {"chr1": r}
-    got = cbs.run_cbs(cov, n_perm=500)
-    monkeypatch.setenv("CANVAS_TPU_CBS_PALLAS", "0")
-    want = cbs.run_cbs(cov, n_perm=500)
-    np.testing.assert_array_equal(got["chr1"], want["chr1"])

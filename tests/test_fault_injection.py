@@ -1,16 +1,12 @@
-"""Deterministic fault-injection tests (round-3 task 6 / round-4 weak #7):
-a wedged CBS pool child mid-work, a stalled hedge fetch, and interpreter
-teardown with abandoned RPC threads must all leave the pipeline bounded
-and correct.
+"""Deterministic fault-injection tests: a CBS pool child wedged mid-work
+must leave the host CBS path bounded and correct.
 """
 
-import threading
 import time
 
 import numpy as np
 import pytest
 
-from canvas_tpu import config
 from canvas_tpu.ops import cbs
 
 
@@ -58,78 +54,3 @@ def test_pool_timeout_scales_and_overrides(monkeypatch):
     assert cbs._host_cbs_pool_timeout(1_000_000) == 2000.0
     monkeypatch.setenv("CANVAS_TPU_CBS_POOL_TIMEOUT_S", "7.5")
     assert cbs._host_cbs_pool_timeout(10 ** 9) == 7.5
-
-
-def test_hedged_fetch_stalled_rpc_falls_back(monkeypatch):
-    """A fetch that blocks past the grace must yield the fallback result
-    and register the abandoned thread for the teardown guard."""
-    monkeypatch.setenv("CANVAS_TPU_FORCE_HEDGE", "1")
-    before = len(config._ABANDONED_FETCHES)
-    release = threading.Event()
-
-    def stalled_fetch():
-        release.wait(30.0)
-        return "device"
-
-    out = config.hedged_fetch(stalled_fetch, lambda: "host", grace=0.3)
-    assert out == "host"
-    assert len(config._ABANDONED_FETCHES) == before + 1
-    t = config._ABANDONED_FETCHES[-1]
-    assert t.is_alive()
-    release.set()          # let the injected thread finish
-    t.join(5.0)
-    config._ABANDONED_FETCHES.pop()
-
-
-def test_hedged_fetch_fast_fetch_wins(monkeypatch):
-    monkeypatch.setenv("CANVAS_TPU_FORCE_HEDGE", "1")
-    out = config.hedged_fetch(lambda: "device", lambda: "host", grace=5.0)
-    assert out == "device"
-
-
-def test_hedged_fetch_error_propagates(monkeypatch):
-    monkeypatch.setenv("CANVAS_TPU_FORCE_HEDGE", "1")
-
-    def boom():
-        raise RuntimeError("lowering edge")
-
-    with pytest.raises(RuntimeError, match="lowering edge"):
-        config.hedged_fetch(boom, lambda: "host", grace=5.0)
-
-
-def test_teardown_guard_hard_exits_with_abandoned_thread(monkeypatch):
-    """Interpreter teardown with a thread still blocked in the RPC layer
-    must flush and _exit instead of letting C++ teardown abort."""
-    calls = []
-    monkeypatch.setattr(config.os, "_exit", lambda code: calls.append(code))
-    stop = threading.Event()
-    t = threading.Thread(target=stop.wait, args=(30.0,), daemon=True)
-    t.start()
-    monkeypatch.setattr(config, "_ABANDONED_FETCHES", [t])
-    monkeypatch.setattr(config, "_WARMUP_THREAD", None)
-    config._EXIT_CODE[0] = 0
-    config._teardown_guard()
-    assert calls == [0]
-    stop.set()
-    t.join(5.0)
-
-
-def test_teardown_guard_noop_when_all_threads_done(monkeypatch):
-    calls = []
-    monkeypatch.setattr(config.os, "_exit", lambda code: calls.append(code))
-    t = threading.Thread(target=lambda: None)
-    t.start()
-    t.join()
-    monkeypatch.setattr(config, "_ABANDONED_FETCHES", [t])
-    monkeypatch.setattr(config, "_WARMUP_THREAD", None)
-    config._teardown_guard()
-    assert calls == []
-
-
-def test_warm_device_session_idempotent():
-    a = config.warm_device_session()
-    b = config.warm_device_session()
-    assert a is b
-    if a is not None:
-        a.join(30.0)
-        assert not a.is_alive()

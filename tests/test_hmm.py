@@ -141,7 +141,7 @@ def test_segment_coverage_batched_matches_percontig(rng):
     covs["chrS"] = rng.poisson(100.0, size=5).astype(np.float64)  # tiny
     want = hmm.segment_coverage({k: v[:, None] for k, v in covs.items()},
                                 per_sample=True)
-    got = hmm.segment_coverage_batched(covs, use_pallas=False, chunk=64)
+    got = hmm.segment_coverage_batched(covs, chunk=64)
     assert got == want
 
 
@@ -205,8 +205,7 @@ def test_joint_batched_accepts_1d_input(rng):
 
 
 def test_emission_log_probs_np_matches_device(rng):
-    """The joint-HMM host oracle must agree with the device emission path
-    (it is the race_fetch fallback on a stalled TPU link)."""
+    """The joint-HMM host oracle must agree with the device emission path."""
     import jax.numpy as jnp
 
     for D in (1, 2, 3):

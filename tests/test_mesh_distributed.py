@@ -76,7 +76,7 @@ def test_bin_sample_round_robin_matches_host_oracle():
         tracks[f"chr{i}"] = dict(
             possible=possible, observed=observed,
             is_gc=rng.random(L) < 0.4, offset=0)
-    dev = binning.bin_sample(dict(tracks), 64, force_fused=True)
+    dev = binning.bin_sample(dict(tracks), 64, route="xla")
     host = {n: binning.bin_contig_np(
         t["possible"], t["observed"], t["is_gc"], 64, t["offset"],
         "TruncatedDynamicRange") for n, t in tracks.items()}
@@ -127,7 +127,8 @@ def test_all_gather_host_data_multiprocess_semantics(monkeypatch):
         dist.all_gather_host_data(local, None)
 
 
-def test_decode_hlo_has_no_collectives():
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_decode_hlo_has_no_collectives(chunk):
     """SCALING.md §2: the lane-sharded production decode must compile to
     ZERO cross-device collectives — lanes are independent, tables are
     replicated, so per-device step time is flat in device count.  This is
@@ -140,7 +141,7 @@ def test_decode_hlo_has_no_collectives():
     mesh, fn = hmm._sharded_decode_fn(
         tuple(jax.devices()[:n_dev]),
         tuple(tuple(0.0 for _ in range(5)) for _ in range(5)),
-        tuple(0.0 for _ in range(5)), 256, True, False)
+        tuple(0.0 for _ in range(5)), chunk)
     from jax.sharding import NamedSharding, PartitionSpec as P
     import jax.numpy as jnp
 

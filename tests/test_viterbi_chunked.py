@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from canvas_tpu.ops import hmm
 
@@ -133,3 +134,67 @@ def test_numpy_chunked_realistic_emissions(rng):
             jnp.asarray(mask)))
         got = hmm.viterbi_decode_np_chunked(log_em, lt, li, mask)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("S", [3, 5])
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("B,T,chunk,lengths", [
+    (2, 100, 32, [100, 77]),           # T not a multiple of the chunk
+    (3, 64, 16, [64, 64, 64]),         # every lane full
+    (3, 96, 32, [96, 0, 5]),           # a zero-length lane, a short lane
+])
+def test_chunked_matches_sequential_oracle(rng, S, uniform, B, T, chunk,
+                                           lengths):
+    """The XLA chunked decode vs the sequential numpy Viterbi and its
+    chunked transcription: identical state paths on every valid bin, for
+    Canvas's uniform transitions and for arbitrary ones."""
+    log_em = rng.normal(size=(B, T, S)).astype(np.float32)
+    if uniform:
+        lt = np.asarray(hmm.log_transition(S), np.float32)
+    else:
+        lt = np.log(rng.dirichlet(np.ones(S), size=S)).astype(np.float32)
+    li = np.log(np.full(S, 1.0 / S, np.float32))
+    lengths = np.asarray(lengths)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    got = np.asarray(hmm.viterbi_decode_chunked(
+        jnp.asarray(log_em), jnp.asarray(lt), jnp.asarray(li),
+        jnp.asarray(mask), chunk=chunk))
+    chunked = hmm.viterbi_decode_np_chunked(log_em, lt, li, mask,
+                                            chunk=chunk)
+    np.testing.assert_array_equal(got[mask], chunked[mask])
+    for b, L in enumerate(lengths):
+        if L:
+            seq = hmm.viterbi_decode_np(log_em[b:b + 1, :L], lt, li,
+                                        mask[b:b + 1, :L])
+            np.testing.assert_array_equal(got[b, :L], seq[0])
+
+
+def _planted_coverage(rng):
+    cov = {}
+    for i, T in enumerate([700, 333, 1000]):
+        c = rng.poisson(100.0, size=T).astype(np.float64)
+        c[T // 3: T // 2] *= 1.5
+        cov[f"chr{i + 1}"] = c
+    return cov
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_segment_coverage_batched_matches_host_oracle(rng, chunk):
+    """The production entry point gives the host oracle's breakpoints."""
+    cov = _planted_coverage(rng)
+    got = hmm.segment_coverage_batched(cov, chunk=chunk)
+    assert got == hmm.segment_coverage_batched_np(cov, chunk=chunk)
+    assert all(len(v) >= 3 for v in got.values())
+
+
+@pytest.mark.gpu
+def test_decode_on_gpu_matches_host_oracle(gpu):
+    """On the card: the compiled decode gives the host oracle's breakpoints
+    at a lane count spanning many chunks."""
+    rng = np.random.default_rng(0)
+    cov = {f"chr{i}": np.abs(rng.normal(100.0, 12.0, 40_000))
+           for i in range(4)}
+    for c in cov.values():
+        c[10_000:14_000] *= 0.5
+    got = hmm.segment_coverage_batched(cov)
+    assert got == hmm.segment_coverage_batched_np(cov)
